@@ -1,13 +1,13 @@
 """Cross-step BM reuse, phase 1: the QUALITY question (round-5 item 1).
 
 The Wiener step re-runs both BM stages on the basic estimate (SURVEY.md
-§2.10 step 2) — at the matched flagship that is ~20% of device time spent
-recomputing tables the HT step just built on the noisy LF. Reusing the HT
+§2.10 step 2), recomputing tables the HT step just built on the noisy LF.
+Reusing the HT
 tables outright changes the algorithm: Wiener groups inherit the noisy-LF
 BM decisions and the HT threshold. Before building the table-reuse fast
 path, this probe measures what that SEMANTIC change costs in PSNR, via the
 already-exact `StepParams.bm_source='noisy'` mode (oracle-pinned in
-tests/test_engine.py::test_bm_source_noisy_oracle_exact).
+tests/test_xla_engine.py).
 
 Variants at the flagship bench LF (9x9x434x625 RGB sigma=25), all on the
 matched preset base:
@@ -23,10 +23,9 @@ matched preset base:
                                            control showing WHY tau must
                                            move with the BM source)
 
-Budget: within 0.05 dB of the reference-default anchor 28.416 dB
-(BASELINE.md flagship table). Speed here is NOT the point (bm_source only
-changes the match input; both steps still compute BM) — the reuse fast
-path lands in the engine once a variant passes the budget.
+Budget: within 0.05 dB of the reference-default anchor 28.416 dB.
+Speed here is NOT the point (bm_source only changes the match input; both
+steps still compute BM).
 
 Usage: python experiments/bm_reuse_probe.py [--small] [--variants ...]
 """
@@ -37,10 +36,6 @@ import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
-
-enable_persistent_compilation_cache()
-
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -49,7 +44,7 @@ from lfbm5d_tpu.lf.metrics import psnr_device  # noqa: E402
 from lfbm5d_tpu.lf.noise import add_noise_np  # noqa: E402
 from lfbm5d_tpu.lf.synth import synthetic_lf  # noqa: E402
 from lfbm5d_tpu.pipeline import run_bm5d  # noqa: E402
-from lfbm5d_tpu.utils.timing import device_fence  # noqa: E402
+from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
 
 VARIANTS = {
     "anchor": dict(),
@@ -66,6 +61,7 @@ def main():
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_persistent_compilation_cache()
     h, w = (192, 256) if args.small else (434, 625)
     mpix = 81 * h * w / 1e6
 
@@ -80,14 +76,12 @@ def main():
         if over:
             params = params.replace(wiener=params.wiener.replace(**over))
         t0 = time.time()
-        _, final = run_bm5d(noisy_d, params, engine="auto")
-        device_fence(final)
+        _, final = jax.block_until_ready(run_bm5d(noisy_d, params))
         compile_s = time.time() - t0
         times = []
         for _ in range(args.runs):
             t0 = time.time()
-            _, final = run_bm5d(noisy_d, params, engine="auto")
-            device_fence(final)
+            _, final = jax.block_until_ready(run_bm5d(noisy_d, params))
             times.append(time.time() - t0)
         q = float(psnr_device(jax.numpy.clip(final, 0, 255), clean_d))
         dt = min(times)

@@ -1,15 +1,14 @@
-"""Preset knee sweep: throughput vs PSNR for candidate presets (VERDICT r2 #2/#3).
+"""Preset knee sweep: throughput vs PSNR for candidate presets.
 
 Runs a list of parameter presets on ONE synthetic LF (the bench LF: same
 seeds/disparity structure as bench.py) in a single process, so all timings
-are same-session comparable (cross-session variance on this machine reaches
-2.2x; docs/DESIGN_NOTES.md). Prints one JSON line per preset with PSNR and
+are same-session comparable. Prints one JSON line per preset with PSNR and
 run times; the PSNR values feed the matched-PSNR preset selection
 (BASELINE.json:5 demands <= 0.05 dB below reference-default quality).
 
 Usage:
   python experiments/preset_knee.py --shape 9 224 320 \
-      --presets default fast N16n8p4 N16n8p4A2 ... [--runs 2] [--engine auto]
+      --presets default fast N16n8p4 N16n8p4A2 ... [--runs 2]
 
 Preset grammar: 'default', 'fast', or N{n_sim}n{n_search}p{p}[d{n_disp}][A{p_ang}];
 'HT/WIENER' (two presets joined by '/') sets the steps asymmetrically —
@@ -74,7 +73,6 @@ def main():
     ap.add_argument("--chunk", type=int, default=256,
                     help="reference-patch chunk (rounds 1-3 swept at 128; "
                     "256 = the preset/bench default)")
-    ap.add_argument("--engine", default="auto")
     ap.add_argument("--sigma", type=float, default=25.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="synthetic-LF content seed (vary to check a preset "
@@ -107,7 +105,7 @@ def main():
     jax.block_until_ready(noisy_dev)
     p_noisy = psnr(np.clip(noisy, 0, 255), clean)
     print(f"# {a}x{a}x{h}x{w} sigma={args.sigma:g} noisy={p_noisy:.3f} dB "
-          f"engine={args.engine} backend={jax.default_backend()}",
+          f"backend={jax.default_backend()}",
           file=sys.stderr, flush=True)
 
     for name in args.presets:
@@ -129,9 +127,7 @@ def main():
         )
         t0 = time.time()
         try:
-            basic, final = run_bm5d(noisy_dev, params, engine=args.engine)
-            jax.block_until_ready(final)
-            float(final[0, 0, 0, 0, 0])
+            basic, final = jax.block_until_ready(run_bm5d(noisy_dev, params))
         except Exception as e:
             print(json.dumps({"preset": name, "error": f"{type(e).__name__}: {e}"}),
                   flush=True)
@@ -140,9 +136,7 @@ def main():
         times = []
         for _ in range(args.runs):
             t0 = time.time()
-            basic, final = run_bm5d(noisy_dev, params, engine=args.engine)
-            jax.block_until_ready(final)
-            float(final[0, 0, 0, 0, 0])
+            basic, final = jax.block_until_ready(run_bm5d(noisy_dev, params))
             times.append(time.time() - t0)
         p_final = float(psnr_device(jnp.clip(final, 0, 255), clean_dev))
         mpix = a * a * h * w / 1e6

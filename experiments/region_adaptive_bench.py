@@ -1,14 +1,14 @@
-"""On-chip measurement of adaptive-region compositing (round-4 item 2c).
+"""Device measurement of adaptive-region compositing.
 
 The region mode's value claim — matched-class speed with robust-class
-quality when the static content is a bounded region — shipped in round 3
-with CPU tests only. This bench measures it at flagship scale on the
+quality when the static content is a bounded region. This bench measures it
+at flagship scale on the
 content class it targets (a static background plane with a moving
 foreground = static-MINORITY blocks clustered in a box), against the
 whole-LF alternatives:
 
     matched          fast everywhere, known to lose on static content
-    robust           safe everywhere, ~20x slower
+    robust           safe everywhere, much slower
     adaptive         LF-level routing (picks ONE of the above)
     adaptive-region  matched everywhere + robust inside the static box
 
@@ -24,10 +24,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
-
-enable_persistent_compilation_cache()
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -41,6 +37,7 @@ from lfbm5d_tpu.pipeline.adaptive import (  # noqa: E402
     denoise_region_adaptive,
     select_preset,
 )
+from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
 
 
 def make_lf(family, h, w, seed):
@@ -68,6 +65,7 @@ def main():
     ap.add_argument("--seeds", type=int, nargs="*", default=[0])
     ap.add_argument("--sigma", type=float, default=25.0)
     args = ap.parse_args()
+    enable_persistent_compilation_cache()
     h, w = args.hw
     mpix = 81 * h * w / 1e6
 
@@ -82,16 +80,12 @@ def main():
         def sync(x):
             return float(psnr_device(jnp.clip(x, 0, 255), clean_d))
 
-        from lfbm5d_tpu.utils.timing import device_fence
-
         def timed(fn, runs=2):
-            out = fn()
-            device_fence(out)  # compile+warm
+            out = jax.block_until_ready(fn())  # compile+warm
             ts = []
             for _ in range(runs):
                 t0 = time.time()
-                out = fn()
-                device_fence(out)
+                out = jax.block_until_ready(fn())
                 ts.append(time.time() - t0)
             return out, min(ts)
 

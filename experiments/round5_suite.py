@@ -1,18 +1,14 @@
-"""Consolidated round-5 measurement suite: every remaining BASELINE row in
-ONE process so the big compiled programs (matched / robust / default /
-region composite / psnr) compile once and all rows reuse them — the
-compile service on this machine queues identical programs for 1-10
-minutes per fresh process (round-5 cold-start finding), which made the
-one-row-per-process harnesses impractically slow and polluted their timed
-windows.
+"""Content-family measurement suite in ONE process, so the big compiled
+programs (matched / robust / default / region composite / psnr) compile
+once and all rows reuse them.
 
 Produces (JSON lines, incrementally flushed):
   * per (family, seed): probe weak_fraction, matched PSNR, robust PSNR
-    (router threshold sweep inputs; VERDICT r4 item 6)
-  * the occl3 reference-default anchor (VERDICT r4 weak #2)
-  * fenced min-of-N timings for matched/robust/region rows on the region
-    families (VERDICT r4 item 2a) — device_fence timing, never a PSNR
-    fetch inside the window
+    (router threshold sweep inputs)
+  * the occl3 reference-default anchor
+  * min-of-N timings (ended by jax.block_until_ready, never a PSNR fetch
+    inside the window) for matched/robust/region rows on the region
+    families
   * threshold sensitivity table over t in [0.55, 0.75]
 
 Usage: python experiments/round5_suite.py [--small] [--seeds 0 1 2]
@@ -26,10 +22,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
-
-enable_persistent_compilation_cache()
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -42,7 +34,7 @@ from lfbm5d_tpu.pipeline.adaptive import (  # noqa: E402
     content_stats,
     denoise_region_adaptive,
 )
-from lfbm5d_tpu.utils.timing import device_fence  # noqa: E402
+from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
 from experiments.content_family import make_lf  # noqa: E402
 
 FAMILIES = ["two-plane", "low-disp", "occl3", "occl-grad", "static-min",
@@ -59,13 +51,11 @@ def psnr_of(x, clean_d):
 
 
 def timed(fn, runs=2):
-    out = fn()
-    device_fence(out)
+    out = jax.block_until_ready(fn())
     ts = []
     for _ in range(runs):
         t0 = time.time()
-        out = fn()
-        device_fence(out)
+        out = jax.block_until_ready(fn())
         ts.append(time.time() - t0)
     return out, min(ts)
 
@@ -77,6 +67,7 @@ def main():
     ap.add_argument("--families", nargs="*", default=FAMILIES)
     ap.add_argument("--runs", type=int, default=2)
     args = ap.parse_args()
+    enable_persistent_compilation_cache()
     h, w = (192, 256) if args.small else (434, 625)
     mpix = 81 * h * w / 1e6
 
@@ -133,7 +124,7 @@ def main():
               f"mean={np.mean(regrets):.4f}  cases>0.05: {n_wrong}/"
               f"{len(regrets)}", flush=True)
     print(f"\n(mpix per LF: {mpix:.2f}; matched/robust/region seconds are "
-          f"device_fence'd min-of-{args.runs})", flush=True)
+          f"min-of-{args.runs})", flush=True)
 
 
 if __name__ == "__main__":

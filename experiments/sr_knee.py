@@ -1,12 +1,10 @@
-"""SR preset knee sweep (round-4 agenda: SR preset table for BASELINE.md).
+"""SR preset knee sweep (the source of config.SR_SCHEDULES).
 
-Protocol = the round-3 flagship SR measurement (BASELINE.md config-4 row):
-clean 9x9x434x624 synthetic LF -> box-decimated x2 LR -> bicubic init ->
-[LFBM5D filter, IBP] loop; PSNR of the HR estimate vs clean. The sweep
-varies the knobs that set the quality/cost knee:
+Protocol: clean 9x9x434x624 synthetic LF -> box-decimated x2 LR -> bicubic
+init -> [LFBM5D filter, IBP] loop; PSNR of the HR estimate vs clean. The
+sweep varies the knobs that set the quality/cost knee:
 
-  * step preset (the per-iteration filter cost: matched ~1.5 s, robust
-    ~20 s at HR flagship scale)
+  * step preset (the per-iteration filter cost)
   * n_iter (total cost is ~linear in it)
   * sigma_init of the decreasing schedule (sigma_final pinned at 1)
 
@@ -22,10 +20,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
-
-enable_persistent_compilation_cache()
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -35,6 +29,7 @@ from lfbm5d_tpu.lf.metrics import psnr_device  # noqa: E402
 from lfbm5d_tpu.lf.resize import downsample, upsample  # noqa: E402
 from lfbm5d_tpu.lf.synth import synthetic_lf  # noqa: E402
 from lfbm5d_tpu.pipeline.sr import run_sr  # noqa: E402
+from lfbm5d_tpu.utils.cache import enable_persistent_compilation_cache  # noqa: E402
 
 
 def main():
@@ -47,6 +42,7 @@ def main():
     ap.add_argument("--sigmas", type=float, nargs="*", default=[8.0, 12.0, 16.0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_persistent_compilation_cache()
     a, (h, w) = args.a, args.hw
 
     clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2,

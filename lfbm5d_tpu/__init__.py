@@ -1,9 +1,11 @@
-"""lfbm5d_tpu — TPU-native light-field denoising and super-resolution framework.
+"""lfbm5d_tpu — light-field denoising and super-resolution in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of V-Sense/LFBM5D
+A from-scratch JAX rebuild of the capabilities of V-Sense/LFBM5D
 (BM3D-style sparse 5D transform-domain collaborative filtering over the full
 sub-aperture-image grid of a light field), designed grid-at-a-time and dense
-for the TPU MXU/VPU rather than patch-at-a-time like the C++ reference.
+for an accelerator rather than patch-at-a-time like the C++ reference. The
+whole pipeline is plain jax.numpy/lax compiled by XLA; it runs on a GPU, and
+on the CPU for tests.
 
 Reference provenance: the reference mount was empty during the survey session
 (see SURVEY.md §0); the algorithm spec implemented here is SURVEY.md §2.10,

@@ -1,4 +1,4 @@
-"""Typed configuration for the LFBM5D-TPU pipeline.
+"""Typed configuration for the LFBM5D pipeline.
 
 Mirrors the reference CLI's per-step parameter blocks (SURVEY.md §2.9): the
 C++ tool takes ~30 positional args with one block of filtering parameters for
@@ -36,7 +36,7 @@ class StepParams:
       k: patch size (k x k).
       p: reference-patch grid step; a final row/col is flushed to the image
         boundary (SURVEY.md §2.10.2).
-      p_ang: reference-SAI grid step (LFBM5D-TPU extension; 1 = reference
+      p_ang: reference-SAI grid step (extension of this rebuild; 1 = reference
         semantics). The reference algorithm lets EVERY SAI serve as
         reference once (SURVEY.md §2.10.3); p_ang > 1 subsamples the
         reference role onto a strided angular grid with boundary flush
@@ -50,7 +50,7 @@ class StepParams:
         ([0,255]-scale pixel units squared).
       use_sd: use standard-deviation-based aggregation weights instead of the
         1/(sigma^2 * N_nz) (HT) / 1/(sigma^2 * ||w||^2) (Wiener) weights.
-      flat_tau: flat-region fallback threshold (LFBM5D-TPU extension;
+      flat_tau: flat-region fallback threshold (extension of this rebuild;
         0 = off = reference semantics). When > 0, reference-grid positions
         that are angular-REDUNDANT — the mean squared deviation of every
         view from the angular mean over the k x k patch (channel 0 of the
@@ -60,12 +60,12 @@ class StepParams:
         that everything matches everything. Pixels no group covers
         (den == 0) take the angular-mean k x k transform-domain fallback
         at finalize (ops/flat.py) — the "flat-region per-SAI fallback"
-        reformulation of BASELINE.md, LF-aware. flat_tau multiplies the
+        reformulation, LF-aware. flat_tau multiplies the
         statistic's redundant-content center sigma_c0^2 (A-1)/A (where it
         concentrates to a few percent); useful margins sit around
-        1.1-1.2. The fused engine also SKIPS the dead chunks (compaction
-        + prefetched live counts), making redundant regions nearly free.
-      bm_source: which LF block matching runs on (LFBM5D-TPU extension;
+        1.1-1.2. Masked groups are still computed and zero-weighted, so
+        the flag changes the output, not the work.
+      bm_source: which LF block matching runs on (extension of this rebuild;
         'auto' = reference semantics). For the HT step BM always runs on
         the noisy LF; for the Wiener step 'auto' runs BM on the basic
         estimate (SURVEY.md §2.10 step 2) while 'noisy' runs it on the
@@ -73,10 +73,8 @@ class StepParams:
         tau_match equal across steps the Wiener tables become identical to
         the HT step's). MEASURED DEAD END for the matched preset: BM on
         noisy costs −0.31 dB at the flagship anchor regardless of
-        re-thresholding (experiments/bm_reuse_probe.py, BASELINE.md
-        round-5) — the Wiener step's BM-on-basic earns its ~20% of device
-        time. The flag stays as the measured record and for research use;
-        no preset sets it.
+        re-thresholding (experiments/bm_reuse_probe.py). The flag stays as
+        the measured record and for research use; no preset sets it.
     """
 
     n_sim: int = 16
@@ -162,7 +160,8 @@ def default_denoise_params(sigma: float = 25.0) -> DenoiseParams:
 # Named parameter presets: StepParams field overrides applied to BOTH steps
 # (tau_match stays per-step: 2500 HT / 400 Wiener). Single source of truth
 # for the CLI, bench.py, and the content-adaptive selector
-# (pipeline/adaptive.py). Measurement record: BASELINE.md knee sweeps.
+# (pipeline/adaptive.py). PSNR figures below are quality measurements of
+# earlier rounds on the synthetic bench LFs (σ=25).
 PRESETS: dict = {
     # reference-default parameters (SURVEY.md §2.9)
     "default": {},
@@ -170,21 +169,21 @@ PRESETS: dict = {
     "fast": dict(n_sim=8, n_search=8, n_disp=2, p=6),
     # fastest preset measured at-or-above reference-default PSNR on the
     # bench LF at the 9x9 flagship shape (28.417 vs 28.416 dB at 434x625,
-    # ~120x the default's speed with the flat-region fallback on; the
-    # fallback is quality-POSITIVE where it triggers — +0.18 dB on
-    # half-flat content, BASELINE.md). Content caveat: loses up to
-    # ~0.4 dB on low-disparity LFs — 'robust' covers that regime.
+    # with the flat-region fallback on; the fallback is quality-POSITIVE
+    # where it triggers — +0.18 dB on half-flat content). Content caveat:
+    # loses up to ~0.4 dB on low-disparity LFs — 'robust' covers that
+    # regime.
     "matched": dict(n_sim=8, n_search=16, n_disp=1, p=8, p_ang=4,
                     flat_tau=1.3),
     # within 0.05 dB of reference-default on EVERY tested content class
-    # (worst case -0.046 dB on a static-background LF) at ~4x default speed
+    # (worst case -0.046 dB on a static-background LF)
     "robust": dict(n_sim=16, n_search=16, n_disp=1, p=3, p_ang=2),
 }
 
 
 # Named SR iteration schedules (n_iter, sigma_init; sigma_final stays 1.0).
-# Measured at the flagship x2 shape (experiments/sr_knee.py, BASELINE.md
-# round-5): with the matched step preset the quality knee is 5 iterations
+# Measured at the flagship x2 shape (experiments/sr_knee.py): with the
+# matched step preset the quality knee is 5 iterations
 # from sigma_init=8 (31.599 dB vs 31.608 at 8 iters and 31.507 at 3;
 # sigma_init 12/16 are never better at equal iterations). The reference-
 # style schedule (10 iterations from sigma 12, SURVEY.md §2.10 SR) remains

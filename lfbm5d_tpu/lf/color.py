@@ -12,7 +12,9 @@ All transforms act on float arrays in [0, 255] units, channel-last.
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 def _unit_rows(m: np.ndarray) -> np.ndarray:
@@ -73,6 +75,14 @@ def channel_sigma_scales(space: str) -> np.ndarray:
     return np.linalg.norm(m, axis=1)
 
 
+def _apply(lf, m: np.ndarray):
+    m = m.astype(lf.dtype)
+    if isinstance(lf, np.ndarray):
+        return lf @ m.T
+    # HIGHEST: a default-precision f32 product may run in TF32 on the GPU
+    return jnp.matmul(lf, m.T, precision=lax.Precision.HIGHEST)
+
+
 def rgb_to_space(lf, space: str):
     """Apply the forward color transform along the last (channel) axis.
 
@@ -80,12 +90,10 @@ def rgb_to_space(lf, space: str):
     """
     if lf.shape[-1] == 1 or space == "rgb":
         return lf
-    m = color_matrix(space).astype(lf.dtype)
-    return lf @ m.T
+    return _apply(lf, color_matrix(space))
 
 
 def space_to_rgb(lf, space: str):
     if lf.shape[-1] == 1 or space == "rgb":
         return lf
-    minv = np.linalg.inv(color_matrix(space)).astype(lf.dtype)
-    return lf @ minv.T
+    return _apply(lf, np.linalg.inv(color_matrix(space)))

@@ -9,8 +9,7 @@ for this rebuild (shared verbatim by the float64 oracle so parity is exact):
   * `downsample`: exact alpha x alpha box average (reshape-mean) — the
     decimation model of the back-projection loop. An optional Gaussian
     pre-blur (`blur_sigma`) gives the classical anti-aliased blur+decimate
-    model of ICIP18's IBP; its PSNR effect vs the plain box model is a
-    measured experiment recorded in BASELINE.md.
+    model of ICIP18's IBP.
 """
 
 from __future__ import annotations

@@ -24,16 +24,14 @@ class LFDenoiser:
     """
 
     def __init__(self, params: DenoiseParams | None = None,
-                 engine: str = "auto", dtype: str = "float32"):
+                 dtype: str = "float32"):
         self.params = params or DenoiseParams()
-        self.engine = engine
         self.dtype = dtype
 
     def __call__(self, noisy_lf):
         from lfbm5d_tpu.pipeline import run_bm5d
 
-        return run_bm5d(noisy_lf, self.params, dtype=self.dtype,
-                        engine=self.engine)
+        return run_bm5d(noisy_lf, self.params, dtype=self.dtype)
 
     def denoise(self, noisy_lf):
         """Returns only the final estimate as a numpy array."""
@@ -44,8 +42,7 @@ class LFDenoiser:
         """Denoise [B, aH, aW, H, W, C]; shard over `mesh` when given."""
         from lfbm5d_tpu.pipeline.streaming import denoise_batch
 
-        return denoise_batch(lfs, self.params, mesh=mesh, dtype=self.dtype,
-                             engine=self.engine)
+        return denoise_batch(lfs, self.params, mesh=mesh, dtype=self.dtype)
 
     def evaluate(self, noisy_lf, clean_lf) -> dict:
         """Denoise and report PSNRs against a clean reference."""

@@ -11,16 +11,15 @@ class LFSuperResolver:
     """LFBM5D-SR: bicubic init + [5D-sparse-prior filter, back-projection]."""
 
     def __init__(self, params: SRParams | None = None,
-                 engine: str = "auto", dtype: str = "float32"):
+                 dtype: str = "float32"):
         self.params = params or SRParams()
-        self.engine = engine
         self.dtype = dtype
 
     def __call__(self, lr_lf, on_iteration=None):
         from lfbm5d_tpu.pipeline.sr import run_sr
 
         return run_sr(lr_lf, self.params, on_iteration=on_iteration,
-                      dtype=self.dtype, engine=self.engine)
+                      dtype=self.dtype)
 
     def upscale(self, lr_lf) -> np.ndarray:
         return np.asarray(self(lr_lf))

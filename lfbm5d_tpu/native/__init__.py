@@ -1,8 +1,8 @@
 """ctypes binding for the native parallel LF loader (io_accel.cpp).
 
-Builds on demand via make (g++ + libpng are part of the image); falls back
-cleanly to the PIL path in lfbm5d_tpu.lf.io when the toolchain or library is
-unavailable, so the package has no hard native dependency.
+Builds on demand via `make -C lfbm5d_tpu/native` (needs g++ and the libpng
+headers); lfbm5d_tpu.lf.io falls back to OpenCV/Pillow when the toolchain
+or library is unavailable, so the package has no hard native dependency.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@
 // The reference's native IO layer is io_png.c, a libpng wrapper decoding one
 // sub-aperture image at a time on the CLI thread (SURVEY.md §2 #6). A light
 // field is 81+ files; Python/PIL decodes them serially at ~10 MB/s-class
-// throughput, which starves the TPU pipeline in streaming mode (driver
-// config 5). This module is the TPU-native equivalent: a C++ thread pool
+// throughput, which starves the device pipeline in streaming mode (driver
+// config 5). This module is the parallel equivalent: a C++ thread pool
 // decodes every SAI in parallel straight into the caller-provided float
 // buffer in the pipeline's [aH, aW, H, W, C] layout and [0, 255] scale
 // (16-bit samples divided by 257, matching lfbm5d_tpu.lf.io).

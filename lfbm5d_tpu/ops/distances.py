@@ -1,7 +1,7 @@
 """Dense block-matching distance maps (hot loops A and B of SURVEY.md §3.1).
 
 The C++ reference computes patch SSDs one candidate at a time inside nested
-loops. The TPU-native formulation is displacement-stacked and dense: for each
+loops. The formulation here is displacement-stacked and dense: for each
 displacement d of the search window, the squared-difference image
 (I - shift(I, d))^2 is box-filtered with the k x k patch window, yielding the
 SSD between the patch at every position and the patch displaced by d — one
@@ -124,8 +124,7 @@ def _shifted_stack(plane, disps: np.ndarray, m: int):
     """[D, H, W] stack of plane shifted by each displacement (zero-extended).
 
     Static slices of the padded plane — a handful of large copies instead of
-    a D-iteration scan of small ops (op-execution overhead dominated the BM
-    stage on TPU; see the profiling notes in SURVEY.md §7 discussion)."""
+    a D-iteration scan of small ops."""
     hp, wp = plane.shape[-2:]
     ext = jnp.pad(plane, [(0, 0)] * (plane.ndim - 2) + [(m, m), (m, m)])
     return jnp.stack(

@@ -1,8 +1,7 @@
 """Flat-region detection and the per-SAI 2D fallback filter.
 
-The flat-region per-SAI fallback (BASELINE.md "Reformulations" item 4, the
-last unshipped idea from the original list; StepParams.flat_tau) skips the 5D
-group machinery for reference patches whose local variance says there is no
+The flat-region per-SAI fallback (StepParams.flat_tau) zero-weights the 5D
+groups of reference patches whose local statistics say there is no
 structure to match — in flat regions BM degenerates (everything matches
 everything) and the full per-slot extract/transform/aggregate cost buys
 nothing over a plain per-SAI shrinkage. Pixels left uncovered (den == 0 at
@@ -57,6 +56,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from lfbm5d_tpu.ops.distances import DIST_QUANT, _box_sum
 
@@ -96,6 +96,13 @@ def _blockify(x, k: int):
     return jnp.moveaxis(b, -4, -3), h, w  # [..., by, bx, k, k, C]
 
 
+def _sep2d(m, x):
+    """Apply the k x k matrix m along both block axes of [..., k, k, C]."""
+    hi = lax.Precision.HIGHEST
+    x = jnp.einsum("uq,...qvc->...uvc", m, x, precision=hi)
+    return jnp.einsum("vq,...uqc->...uvc", m, x, precision=hi)
+
+
 def fallback_shrink_2d(x, sigma_c, f2, i2, lambda_3d: float, pilot=None):
     """Angular-mean k x k blockwise transform shrinkage (the den==0 fallback).
 
@@ -110,8 +117,7 @@ def fallback_shrink_2d(x, sigma_c, f2, i2, lambda_3d: float, pilot=None):
     a = a_h * a_w
     sig_m = sigma_c / jnp.sqrt(jnp.asarray(float(a), sigma_c.dtype))
     xb, h, w = _blockify(jnp.mean(x, axis=(0, 1)), k)
-    spec = jnp.einsum("uq,...qvc->...uvc", f2, xb)
-    spec = jnp.einsum("vq,...uqc->...uvc", f2, spec)
+    spec = _sep2d(f2, xb)
     if pilot is None:
         # empirical Wiener against the mean's own spectrum (HT measurably
         # over-smooths static weak texture; lambda_3d unused here)
@@ -121,12 +127,10 @@ def fallback_shrink_2d(x, sigma_c, f2, i2, lambda_3d: float, pilot=None):
         filt = spec * (b2 / (b2 + s2))
     else:
         pb, _, _ = _blockify(jnp.mean(pilot, axis=(0, 1)), k)
-        sb = jnp.einsum("uq,...qvc->...uvc", f2, pb)
-        sb = jnp.einsum("vq,...uqc->...uvc", f2, sb)
+        sb = _sep2d(f2, pb)
         b2 = sb * sb
         filt = spec * (b2 / (b2 + sig_m * sig_m))
-    est = jnp.einsum("uq,...qvc->...uvc", i2, filt)
-    est = jnp.einsum("vq,...uqc->...uvc", i2, est)
+    est = _sep2d(i2, filt)
     est = jnp.moveaxis(est, -3, -4)  # [by, k, bx, k, C]
     hp = est.shape[-5] * k
     wp = est.shape[-3] * k

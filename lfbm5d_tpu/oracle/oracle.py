@@ -1,6 +1,6 @@
 """Float64 NumPy oracle: a literal implementation of SURVEY.md §2.10.
 
-This module is the correctness anchor for every TPU kernel (SURVEY.md §4.2.1):
+This module is the correctness anchor for the jitted pipeline (SURVEY.md §4.2.1):
 the reference mount was empty (§0), so output fidelity is defined by this
 oracle, which implements the published LFBM5D algorithm patch-at-a-time, the
 way the C++ reference does — per-reference-patch Python loop, stable-sorted
@@ -10,7 +10,7 @@ scatter-add aggregation.
 
 Deliberately slow and simple. Use tiny light fields only.
 
-Conventions shared with the TPU path (documented spec choices, §2.10):
+Conventions shared with the jitted path (documented spec choices, §2.10):
   * BM distances on channel 0 only, SSD normalized by k^2 ([0,255]^2 units).
   * Self-BM candidate order: sort by (distance, is-not-self, row-major window
     index) — the reference patch always ranks first among ties, which

@@ -1,11 +1,11 @@
 """Device-mesh helpers for multi-chip scaling.
 
 The reference has no distributed backend at all (SURVEY.md §2: single
-process, OpenMP only). The TPU-native scaling story (SURVEY.md §5.8) is:
+process, OpenMP only). The scaling story here (SURVEY.md §5.8) is:
 
   * Streaming throughput (driver config 5): whole light fields are
-    embarrassingly parallel — shard the LF batch axis over a 1D ICI mesh
-    ('lf' axis) with shard_map; zero collectives inside a light field.
+    embarrassingly parallel — shard the LF batch axis over a 1D device
+    mesh ('lf' axis) with shard_map; zero collectives inside a light field.
   * A single LF never crosses chips at target sizes; the halo-exchange SAI
     sharding reserved for that case would ride `ppermute` over the same mesh.
 """
@@ -23,8 +23,8 @@ def ensure_virtual_devices(n_devices: int) -> bool:
     """Provision an `n_devices` virtual CPU platform for mesh testing.
 
     Forcing the host platform only works BEFORE the first JAX backend use
-    (verified on this machine: post-init `jax.config.update("jax_platforms")`
-    is silently ignored and there is no clear_backends), so this must be the
+    (a post-init `jax.config.update("jax_platforms")` is silently ignored
+    and there is no clear_backends), so this must be the
     first JAX-touching call in the process. Returns True if the virtual
     platform was (or already had been) provisioned, False if a backend was
     already initialized and the flags could not be applied.

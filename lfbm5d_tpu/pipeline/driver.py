@@ -1,7 +1,7 @@
 """Streaming driver: denoise many on-disk light fields through the mesh.
 
 The reference has no fault handling (single-shot CLI, SURVEY.md §5.3); the
-TPU-native streaming config gets the minimal production story: batch LF
+streaming config gets the minimal production story: batch LF
 directories through `denoise_batch`, retry each failed batch per-LF, and
 report per-LF status so one corrupt input cannot sink a streaming job.
 """

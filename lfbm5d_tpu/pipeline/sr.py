@@ -30,8 +30,7 @@ def sigma_schedule(params: SRParams) -> np.ndarray:
     return np.linspace(params.sigma_init, params.sigma_final, params.n_iter)
 
 
-def run_sr(lr_lf, params: SRParams, on_iteration=None, dtype: str = "float32",
-           engine: str = "auto"):
+def run_sr(lr_lf, params: SRParams, on_iteration=None, dtype: str = "float32"):
     """Super-resolve an LR light field [aH, aW, h, w, C] by params.scale.
 
     Returns the HR estimate [aH, aW, scale*h, scale*w, C] (jnp array).
@@ -42,13 +41,9 @@ def run_sr(lr_lf, params: SRParams, on_iteration=None, dtype: str = "float32",
         lr = jnp.asarray(np.asarray(lr_lf), jnp.dtype(dtype))
     hr = upsample(lr, params.scale)
     a_h, a_w, h, w, c = hr.shape
-    # Every iteration's filter goes through run_bm5d so SR inherits its
-    # launched/banked execution routing — a default-ish step preset at
-    # flagship HR shapes exceeds the single-program slot bound and would
-    # fault the device if compiled as one program (the regime
-    # _LAUNCH_SLOT_LIMIT exists for). Sigma enters only as the traced
-    # sigma_c argument and params.sigma stays 0.0 in the jit key, so one
-    # compilation per geometry still serves the whole schedule.
+    # Every iteration's filter goes through run_bm5d. Sigma enters only as
+    # the traced sigma_c argument and params.sigma stays 0.0 in the jit
+    # key, so one compilation per geometry serves the whole schedule.
     dn = DenoiseParams(
         sigma=0.0,
         lambda_3d=params.lambda_3d,
@@ -60,7 +55,7 @@ def run_sr(lr_lf, params: SRParams, on_iteration=None, dtype: str = "float32",
     schedule = sigma_schedule(params)
     for i, sigma in enumerate(schedule):
         sigma_c = _sigma_channels(float(sigma), params.color_space, c, dtype)
-        _, hr = run_bm5d(hr, dn, dtype, engine, sigma_c=sigma_c)
+        _, hr = run_bm5d(hr, dn, dtype, sigma_c=sigma_c)
         residual = lr - downsample(hr, params.scale, params.decimation_blur)
         hr = hr + params.bp_gain * upsample(residual, params.scale)
         if on_iteration is not None:

@@ -1,4 +1,4 @@
-"""Separable 5D group transform as batched einsums (MXU-bound).
+"""Separable 5D group transform as batched einsums.
 
 A 5D group is a tensor [B, N, aH, aW, k, k, C]: B groups per batch, N-deep
 similarity stack, aH x aW angular grid (one patch per SAI), k x k spatial
@@ -11,6 +11,11 @@ The stack transform is selected PER GROUP by `lvl = log2(stack_size)` (the
 power-of-two truncation of §2.10.4): `stack_matrices` zero-pads each size's
 matrix to N x N, so gathering the per-group matrix and batch-matmuling it
 handles variable group sizes with fully static shapes.
+
+Every product runs at `Precision.HIGHEST`: at default precision an f32
+matmul may run in TF32 on the GPU, and its ~1e-3 relative error reaches the
+Wiener step's block matching (which matches on the HT output with distances
+quantized to integers), so it can change candidate sets, not only last bits.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from lfbm5d_tpu.config import StepParams
 from lfbm5d_tpu.transforms import matrices as tm
@@ -59,28 +65,32 @@ class GroupTransforms:
         )
 
 
+def _ein(spec, a, b):
+    return jnp.einsum(spec, a, b, precision=lax.Precision.HIGHEST)
+
+
 def forward_5d(g, lvl, t: GroupTransforms):
     """Forward separable 5D transform.
 
     g: [B, N, aH, aW, k, k, C]; lvl: [B] int32 stack-size log2 per group.
     """
-    g = jnp.einsum("uq,bnstqvc->bnstuvc", t.f2, g)
-    g = jnp.einsum("vq,bnstuqc->bnstuvc", t.f2, g)
+    g = _ein("uq,bnstqvc->bnstuvc", t.f2, g)
+    g = _ein("vq,bnstuqc->bnstuvc", t.f2, g)
     if t.f4s is not None:
-        g = jnp.einsum("sq,bnqtuvc->bnstuvc", t.f4s, g)
-        g = jnp.einsum("tq,bnsquvc->bnstuvc", t.f4t, g)
+        g = _ein("sq,bnqtuvc->bnstuvc", t.f4s, g)
+        g = _ein("tq,bnsquvc->bnstuvc", t.f4t, g)
     m = t.stack_f[lvl]  # [B, N, N]
-    g = jnp.einsum("bnq,bqstuvc->bnstuvc", m, g)
+    g = _ein("bnq,bqstuvc->bnstuvc", m, g)
     return g
 
 
 def inverse_5d(g, lvl, t: GroupTransforms):
     """Inverse separable 5D transform (stack -> angular -> spatial)."""
     m = t.stack_i[lvl]
-    g = jnp.einsum("bnq,bqstuvc->bnstuvc", m, g)
+    g = _ein("bnq,bqstuvc->bnstuvc", m, g)
     if t.i4s is not None:
-        g = jnp.einsum("sq,bnqtuvc->bnstuvc", t.i4s, g)
-        g = jnp.einsum("tq,bnsquvc->bnstuvc", t.i4t, g)
-    g = jnp.einsum("uq,bnstqvc->bnstuvc", t.i2, g)
-    g = jnp.einsum("vq,bnstuqc->bnstuvc", t.i2, g)
+        g = _ein("sq,bnqtuvc->bnstuvc", t.i4s, g)
+        g = _ein("tq,bnsquvc->bnstuvc", t.i4t, g)
+    g = _ein("uq,bnstqvc->bnstuvc", t.i2, g)
+    g = _ein("vq,bnstuqc->bnstuvc", t.i2, g)
     return g

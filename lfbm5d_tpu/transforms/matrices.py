@@ -2,8 +2,8 @@
 
 The reference's transform library (lib_transforms.cpp, SURVEY.md §2 #4)
 implements bior1.5 by lifting, Hadamard/Haar in-place, and k x k DCT via FFTW
-plans. On TPU every one of these is a small dense matrix applied by batched
-matmul on the MXU (SURVEY.md §7.2: "lifting is unnecessary on MXU"), so this
+plans. Here every one of these is a small dense matrix applied by batched
+matmul (SURVEY.md §7.2: lifting is unnecessary for dense matmuls), so this
 module builds the matrices once in float64:
 
   * dct_matrix(n)      — orthonormal DCT-II (matches scipy.fft.dct norm='ortho')
@@ -168,8 +168,7 @@ def stack_matrices(name: str, n_max: int) -> tuple[np.ndarray, np.ndarray]:
 
 @lru_cache(maxsize=None)
 def kaiser_window_1d(k: int, beta: float = 2.0) -> np.ndarray:
-    """1-D Kaiser factor: kaiser_window(k) == outer(w, w). The fused
-    engine's deferred-den finalize convolves with this factor separably."""
+    """1-D Kaiser factor: kaiser_window(k) == outer(w, w)."""
     return np.kaiser(k, beta)
 
 

@@ -1,9 +1,10 @@
 """Device-trace aggregation for jax.profiler dumps (SURVEY.md §5.1).
 
-bench.py --profile DIR writes an xplane trace; this module reduces it to the
-per-op self-time table that drove the round-2 optimization work (fused
-kernel share, BM gather pathology, band adds). Uses the installed xprof
-converter; falls back to the raw trace.json.gz if xprof is unavailable.
+bench.py --profile DIR and chip_smoke.py --trace DIR write an xplane trace.
+`summarize_trace` reduces it with nothing but JAX (jax.profiler.ProfileData):
+for every line of every GPU plane, its event count, summed duration, busy
+union and top events, plus the busy and idle share of the kernel streams over
+the traced window.
 
 Usage:
   python -m lfbm5d_tpu.utils.profiling /tmp/trace_dir [top_n]
@@ -12,7 +13,6 @@ Usage:
 from __future__ import annotations
 
 import glob
-import json
 import sys
 
 
@@ -23,47 +23,59 @@ def _find_xplane(trace_dir: str) -> str:
     return hits[-1]
 
 
-def device_op_table(trace_dir: str) -> list[dict]:
-    """[{op, occurrences, self_seconds, bound_by, bw_gbps}] sorted by time."""
-    from xprof.convert import raw_to_tool_data as rtd
+def _union_ns(intervals) -> float:
+    total, end = 0.0, None
+    for s0, s1 in sorted(intervals):
+        if end is None or s0 > end:
+            total += s1 - s0
+            end = s1
+        elif s1 > end:
+            total += s1 - end
+            end = s1
+    return total
 
-    out, _ = rtd.xspace_to_tool_data(
-        [_find_xplane(trace_dir)], "framework_op_stats", {}
-    )
-    data = json.loads(out) if isinstance(out, (str, bytes)) else out
-    tab = data[0]
-    cols = [c["id"] for c in tab["cols"]]
-    ix = {k: cols.index(k) for k in (
-        "operation", "host_or_device", "occurrences", "total_self_time",
-        "bound_by", "measured_memory_bw",
-    )}
-    rows = []
-    for r in tab["rows"]:
-        v = [c.get("v") for c in r["c"]]
-        if v[ix["host_or_device"]] != "Device":
+
+def summarize_trace(trace_dir: str, top_n: int = 12) -> str:
+    """Text summary of the GPU planes of the newest trace under trace_dir."""
+    from jax.profiler import ProfileData
+
+    pd = ProfileData.from_file(_find_xplane(trace_dir))
+    out = []
+    streams = []
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:GPU"):
             continue
-        rows.append({
-            "op": v[ix["operation"]],
-            "occurrences": int(v[ix["occurrences"]] or 0),
-            "self_seconds": (v[ix["total_self_time"]] or 0.0) / 1e6,
-            "bound_by": v[ix["bound_by"]],
-            "bw_gbps": v[ix["measured_memory_bw"]],
-        })
-    rows.sort(key=lambda d: -d["self_seconds"])
-    return rows
-
-
-def print_top(trace_dir: str, top_n: int = 15, file=None) -> None:
-    rows = device_op_table(trace_dir)
-    total = sum(r["self_seconds"] for r in rows)
-    print(f"device self-time total: {total:.2f}s", file=file)
-    for r in rows[:top_n]:
-        print(
-            f"{r['self_seconds']:9.3f}s {r['occurrences']:9d}x "
-            f"{str(r['bound_by'])[:10]:10} {r['op'][:80]}",
-            file=file,
+        out.append(f"plane {plane.name}")
+        for line in plane.lines:
+            evs = [(e.name, e.start_ns, e.duration_ns) for e in line.events]
+            if not evs:
+                continue
+            iv = [(s0, s0 + d) for _, s0, d in evs]
+            if line.name.startswith("Stream"):
+                streams += iv
+            by = {}
+            for name, _, d in evs:
+                n, t = by.get(name, (0, 0.0))
+                by[name] = (n + 1, t + d)
+            out.append(
+                f"  line {line.name!r}: {len(evs)} events, sum "
+                f"{sum(d for *_, d in evs) / 1e9:.6f} s, busy "
+                f"{_union_ns(iv) / 1e9:.6f} s"
+            )
+            for name, (n, t) in sorted(by.items(), key=lambda kv: -kv[1][1])[
+                :top_n
+            ]:
+                out.append(f"    {t / 1e9:10.6f} s {n:8d}x {name[:100]}")
+    if streams:
+        window = max(s1 for _, s1 in streams) - min(s0 for s0, _ in streams)
+        busy = _union_ns(streams)
+        out.append(
+            f"kernel streams: window {window / 1e9:.6f} s, busy "
+            f"{busy / 1e9:.6f} s, idle share {1 - busy / window:.4f}"
         )
+    return "\n".join(out)
 
 
 if __name__ == "__main__":
-    print_top(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 15)
+    print(summarize_trace(sys.argv[1],
+                          int(sys.argv[2]) if len(sys.argv) > 2 else 12))

@@ -113,7 +113,7 @@ def test_preset_params_builders():
 
 
 # ---------------------------------------------------------------------------
-# Region-adaptive machinery (ADVICE r3: seam-sensitive indexing code needs
+# Region-adaptive machinery (seam-sensitive indexing code needs
 # direct CPU tests — box rounding/clamping, feather edge logic, composite
 # indexing, and the large-box fallback route). Round 4: the region keys on
 # the WEAK map (the measured failure class), not the static map.
@@ -245,20 +245,19 @@ def test_region_composite_end_to_end():
     p_m, p_r = _tiny_params(4), _tiny_params(6)
     margin = 16
     basic, final, info = denoise_region_adaptive(
-        noisy, 25.0, engine="xla", margin=margin, round_to=16,
+        noisy, 25.0, margin=margin, round_to=16,
         min_weak_blocks=4, params_matched=p_m, params_robust=p_r)
     assert info["mode"] == "region", info
     y0, y1, x0, x1 = info["box"]
     final = np.asarray(final)
-    fm = np.asarray(run_bm5d(noisy, p_m, engine="xla")[1])
+    fm = np.asarray(run_bm5d(noisy, p_m)[1])
     # outside the box: bit-identical to the matched pass
     outside = np.ones(final.shape, bool)
     outside[:, :, y0:y1, x0:x1] = False
     np.testing.assert_array_equal(final[outside], fm[outside])
     # feather-complete interior: the robust crop pass at weight exactly 1
     # (edges flush with the image border are closed: no ramp there)
-    fr = np.asarray(run_bm5d(noisy[:, :, y0:y1, x0:x1], p_r,
-                             engine="xla")[1])
+    fr = np.asarray(run_bm5d(noisy[:, :, y0:y1, x0:x1], p_r)[1])
     iy0 = y0 + margin if y0 > 0 else y0
     iy1 = y1 - margin if y1 < 96 else y1
     ix0 = x0 + margin if x0 > 0 else x0
@@ -269,7 +268,7 @@ def test_region_composite_end_to_end():
 
 
 def test_large_box_scattered_weak_falls_back_to_router(monkeypatch):
-    """ADVICE r3 fix, re-keyed to the weak map: a frame-spanning weak-block
+    """Re-keyed to the weak map: a frame-spanning weak-block
     bounding box on content the LF-level router calls STRONG
     (weak_fraction < threshold — strong content has scattered weak blocks)
     must run matched, not the ~25x full-frame robust. The probe is stubbed
@@ -293,12 +292,12 @@ def test_large_box_scattered_weak_falls_back_to_router(monkeypatch):
                                      "static": np.zeros_like(wmap)}))
     p_m, p_r = _tiny_params(4), _tiny_params(6)
     basic, final, info = denoise_region_adaptive(
-        noisy, 25.0, engine="xla", params_matched=p_m, params_robust=p_r)
+        noisy, 25.0, params_matched=p_m, params_robust=p_r)
     assert info["mode"] == "matched", info
     assert info["area_frac"] >= 0.7
     from lfbm5d_tpu.pipeline import run_bm5d
 
-    fm = np.asarray(run_bm5d(noisy, p_m, engine="xla")[1])
+    fm = np.asarray(run_bm5d(noisy, p_m)[1])
     np.testing.assert_array_equal(np.asarray(final), fm)
 
 
@@ -322,7 +321,7 @@ def test_large_box_weak_majority_runs_robust(monkeypatch):
                                      "static": np.zeros_like(wmap)}))
     p_m, p_r = _tiny_params(4), _tiny_params(6)
     basic, final, info = denoise_region_adaptive(
-        noisy, 25.0, engine="xla", params_matched=p_m, params_robust=p_r)
+        noisy, 25.0, params_matched=p_m, params_robust=p_r)
     assert info["mode"] == "robust", info
     assert info["area_frac"] >= 0.7
 

@@ -98,7 +98,7 @@ def test_positional_reference_cli(tmp_path):
 
 
 def test_positional_sr_cli(lf_dir, tmp_path):
-    """VERDICT r3 item 7 / SURVEY.md §2 component 11: the reference SR branch
+    """SURVEY.md §2 component 11: the reference SR branch
     ships its own positional main; the 33-positional sr block must run the
     same semantics as the flagged form (order documented at
     cli._POSITIONAL_SR)."""

@@ -16,7 +16,6 @@ from lfbm5d_tpu.lf import load_lf, psnr, save_lf, synthetic_lf
 from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.oracle import oracle_ht_step
 from lfbm5d_tpu.pipeline import ht_step, run_bm5d
-from lfbm5d_tpu.pipeline.denoise import _resolve_engine
 
 TINY = dict(n_sim=8, n_search=4, n_disp=1, k=8, p=3)
 
@@ -69,22 +68,33 @@ def test_use_sd_weighting_matches_oracle():
     np.testing.assert_allclose(basic_o, basic_t, atol=1e-8)
 
 
-def test_use_sd_engines_agree():
-    clean = synthetic_lf(2, 2, 20, 20, channels=1, seed=3)
-    noisy = add_noise_np(clean, 20.0, seed=4)
-    sp = StepParams(use_sd=True, **TINY)
-    bx = np.asarray(ht_step(noisy, 20.0, sp, 2.7, "rgb", 32, engine="xla"))
-    bp = np.asarray(ht_step(noisy, 20.0, sp, 2.7, "rgb", 32, engine="pallas"))
-    np.testing.assert_allclose(bx, bp, atol=2e-3)
-
-
 def test_resolve_engine_is_backend_based():
-    """Lane banking removed the large-grid XLA fallback: 'auto' resolves by
-    backend only (pallas on TPU, xla elsewhere); explicit choices stick even
-    for >128-SAI grids (17x17 covered functionally in tests/test_engine.py)."""
-    assert _resolve_engine("auto") == "xla"  # tests run on CPU
-    assert _resolve_engine("pallas", 289) == "pallas"
-    assert _resolve_engine("xla", 81) == "xla"
+    """One engine on every backend: the whole pipeline lowers to plain XLA
+    ops (no custom call ties it to one accelerator), and no entry point
+    takes an option to pick another."""
+    import inspect
+
+    import jax
+    import jax.numpy as jnp
+
+    from lfbm5d_tpu.models import LFDenoiser, LFSuperResolver
+    from lfbm5d_tpu.pipeline import wiener_step
+    from lfbm5d_tpu.pipeline.adaptive import denoise_region_adaptive
+    from lfbm5d_tpu.pipeline.denoise import build_denoise_fn
+    from lfbm5d_tpu.pipeline.sr import run_sr
+    from lfbm5d_tpu.pipeline.stream_io import stream_denoise_dirs
+    from lfbm5d_tpu.pipeline.streaming import denoise_batch
+
+    p = DenoiseParams(sigma=20.0, ht=StepParams(**TINY),
+                      wiener=StepParams(tau_match=400.0, **TINY), chunk=16)
+    fn = build_denoise_fn(p, 2, 2, 16, 16, 3)
+    text = jax.jit(fn).lower(jnp.zeros((2, 2, 16, 16, 3), jnp.float32),
+                             jnp.ones((3,), jnp.float32)).as_text()
+    assert "custom_call" not in text
+    for f in (run_bm5d, ht_step, wiener_step, build_denoise_fn, run_sr,
+              denoise_batch, stream_denoise_dirs, denoise_region_adaptive,
+              LFDenoiser, LFSuperResolver):
+        assert "engine" not in inspect.signature(f).parameters, f
 
 
 def test_preset_merge_explicit_flag_wins():
@@ -109,8 +119,8 @@ def test_preset_merge_explicit_flag_wins():
 
 def test_matched_preset_is_the_measured_one():
     """The CLI 'matched' preset must stay in sync with the knee-sweep
-    winner recorded in BASELINE.md (N8 n16 p8 nDisp=1 p_ang=4 +
-    flat_tau=1.3: 28.417 dB vs default 28.416 at the flagship shape)."""
+    winner (N8 n16 p8 nDisp=1 p_ang=4 + flat_tau=1.3: 28.417 dB vs default
+    28.416 at the flagship shape)."""
     import argparse
 
     from lfbm5d_tpu.cli import _step_args, _step_params
@@ -125,9 +135,9 @@ def test_matched_preset_is_the_measured_one():
 
 def test_robust_preset_is_the_measured_one():
     """The CLI 'robust' preset must stay in sync with the content-
-    robustness winner recorded in BASELINE.md (N16 n16 p3 nDisp=1
-    p_ang=2: within 0.05 dB of reference-default on every tested
-    content class, worst case -0.046 dB on the static-background LF)."""
+    robustness winner (N16 n16 p3 nDisp=1 p_ang=2: within 0.05 dB of
+    reference-default on every tested content class, worst case
+    -0.046 dB on the static-background LF)."""
     import argparse
 
     from lfbm5d_tpu.cli import _step_args, _step_params

@@ -1,7 +1,6 @@
 """Batched BM alternatives must agree exactly with the scan-based forms."""
 
 import numpy as np
-import pytest
 import jax.numpy as jnp
 
 from lfbm5d_tpu.lf import synthetic_lf
@@ -37,47 +36,3 @@ def test_cross_argmin_all_matches_scan():
     for ai in range(4):
         want = np.asarray(cross_argmin(planes[0], planes[ai], 8, 1))
         np.testing.assert_array_equal(got[ai], want)
-
-
-@pytest.mark.slow
-def test_streaming_pallas_sequential():
-    from lfbm5d_tpu.config import DenoiseParams, StepParams
-    from lfbm5d_tpu.pipeline.streaming import denoise_batch
-
-    tiny = dict(n_sim=4, n_search=3, n_disp=1, k=8, p=4)
-    p = DenoiseParams(sigma=20.0, ht=StepParams(**tiny),
-                      wiener=StepParams(tau_match=400.0, **tiny), chunk=32)
-    lfs = np.stack([
-        add_noise_np(synthetic_lf(2, 2, 16, 16, channels=1, seed=s), 20.0,
-                     seed=s) for s in range(2)
-    ])
-    b_x, f_x = denoise_batch(lfs, p, engine="xla")
-    b_p, f_p = denoise_batch(lfs, p, engine="pallas")
-    np.testing.assert_allclose(np.asarray(f_x), np.asarray(f_p), atol=2e-3)
-
-
-def test_self_distances_kernel_matches_scan_f64():
-    """kernels/bm.py self_distances_kernel (interpret) vs the XLA scan.
-
-    In f64 on random data the doubling-tree and reduce_window summation
-    orders land on identical quantized integers (the quantization spec
-    absorbs sub-0.125 ordering noise; ops/distances.py docstring)."""
-    from lfbm5d_tpu.kernels.bm import self_distances_kernel
-
-    planes = _planes().astype(jnp.float64)
-    for (k, n, p) in ((8, 4, 3), (8, 6, 5), (4, 5, 4)):
-        pad = n + 2
-        ys = ind_initialize(24, k, p) + pad
-        xs = ind_initialize(28, k, p) + pad
-        plane = jnp.asarray(
-            np.asarray(pad_lf(
-                add_noise_np(synthetic_lf(1, 1, 24, 28, channels=1, seed=2),
-                             20.0, seed=3), pad))[0, 0, :, :, 0],
-            jnp.float64,
-        )
-        a = np.asarray(self_distances(plane, ys, xs, k, n))
-        b = np.asarray(self_distances_kernel(
-            plane, tuple(int(v) for v in ys), tuple(int(v) for v in xs),
-            k, n, interpret=True,
-        ))
-        np.testing.assert_array_equal(a, b)

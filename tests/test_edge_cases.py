@@ -1,4 +1,4 @@
-"""Degenerate-parameter robustness on both engines.
+"""Degenerate-parameter robustness.
 
 A 1x1 angular grid reduces LFBM5D to plain single-image BM3D — the
 framework covers that reference use case for free.
@@ -13,31 +13,28 @@ from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.pipeline import run_bm5d
 
 
-def _run(shape, sp_kw, engine):
+def _run(shape, sp_kw):
     clean = synthetic_lf(*shape[:4], channels=shape[4], seed=0)
     noisy = add_noise_np(clean, 20.0, seed=1)
     p = DenoiseParams(
         sigma=20.0, ht=StepParams(**sp_kw),
         wiener=StepParams(tau_match=400.0, **sp_kw), chunk=16,
     )
-    b, f = run_bm5d(noisy, p, engine=engine)
+    b, f = run_bm5d(noisy, p)
     assert np.isfinite(np.asarray(f)).all()
     return clean, noisy, np.asarray(f)
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
 @pytest.mark.slow
-def test_single_image_bm3d(engine):
+def test_single_image_bm3d():
     clean, noisy, f = _run(
         (1, 1, 32, 32, 1), dict(n_sim=8, n_search=4, n_disp=1, k=8, p=3),
-        engine,
     )
     assert psnr(np.clip(f, 0, 255), clean) > psnr(
         np.clip(noisy, 0, 255), clean
     ) + 2.0
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
 @pytest.mark.parametrize("shape,sp", [
     ((2, 2, 8, 12, 1), dict(n_sim=2, n_search=2, n_disp=1, k=8, p=3)),
     ((2, 2, 16, 16, 1), dict(n_sim=1, n_search=3, n_disp=1, k=8, p=4)),
@@ -45,5 +42,5 @@ def test_single_image_bm3d(engine):
     ((2, 2, 16, 16, 1), dict(n_sim=4, n_search=3, n_disp=1, k=4, p=3)),
 ])
 @pytest.mark.slow
-def test_degenerate_params(engine, shape, sp):
-    _run(shape, sp, engine)
+def test_degenerate_params(shape, sp):
+    _run(shape, sp)

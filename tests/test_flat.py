@@ -1,8 +1,7 @@
 """Flat-region fallback (StepParams.flat_tau, ops/flat.py).
 
-The last reformulation from BASELINE.md's list: reference-grid positions
-whose angular-redundancy statistic says "all views already agree" skip the
-5D group machinery; pixels no group covers take the angular-mean blockwise
+Reference-grid positions whose angular-redundancy statistic says "all views
+already agree" build no weighted group; pixels no group covers take the angular-mean blockwise
 2D fallback at finalize. Spec in ops/flat.py; the float64 oracle
 implements it literally.
 """
@@ -38,27 +37,23 @@ def flat_lf():
 
 
 @pytest.mark.slow
-def test_flat_fallback_oracle_exact_both_engines(flat_lf):
-    """f64: oracle == XLA engine == fused (interpret) with flat_tau on."""
+def test_flat_fallback_oracle_exact(flat_lf):
+    """f64: oracle == the jitted pipeline with flat_tau on."""
     from lfbm5d_tpu.oracle import oracle_denoise
 
     clean, noisy = flat_lf
     p = params(flat_tau=FLAT_TAU)
     ob, of = oracle_denoise(noisy, p)
-    bx, fx = run_bm5d(noisy, p, dtype="float64", engine="xla")
-    bp, fp = run_bm5d(noisy, p, dtype="float64", engine="pallas")
+    bx, fx = run_bm5d(noisy, p, dtype="float64")
     assert np.abs(ob - np.asarray(bx)).max() < 1e-9
     assert np.abs(of - np.asarray(fx)).max() < 1e-9
-    assert np.abs(ob - np.asarray(bp)).max() < 1e-9
-    assert np.abs(of - np.asarray(fp)).max() < 1e-9
     # the fallback path was actually exercised (flat half skipped) ...
-    of0 = np.asarray(run_bm5d(noisy, params(0.0), dtype="float64",
-                              engine="xla")[1])
+    of0 = np.asarray(run_bm5d(noisy, params(0.0), dtype="float64")[1])
     assert np.abs(of0 - of).max() > 1e-3
     # ... and quality holds up. At this tiny 2x2 grid the angular mean
     # averages only A=4 views (residual sigma/2), so the fallback gives up
     # ~0.3 dB to the full 5D path; at the flagship A=81 (sigma/9) it
-    # measures at-or-above the 5D path in redundant zones (BASELINE.md).
+    # measured at-or-above the 5D path in redundant zones.
     q0 = psnr(np.clip(of0, 0, 255), clean)
     q1 = psnr(np.clip(of, 0, 255), clean)
     assert q1 > q0 - 0.5
@@ -69,10 +64,8 @@ def test_flat_tau_inert_on_textured_content():
     clean = synthetic_lf(2, 2, 32, 48, 1, disp_bg=0, disp_fg=1, seed=5)
     noisy = add_noise_np(clean, 20.0, seed=2)
     # textured everywhere at sigma=20: variance >> 0.2 * sigma^2
-    f0 = np.asarray(run_bm5d(noisy, params(0.0), dtype="float64",
-                             engine="xla")[1])
-    f1 = np.asarray(run_bm5d(noisy, params(0.2), dtype="float64",
-                             engine="xla")[1])
+    f0 = np.asarray(run_bm5d(noisy, params(0.0), dtype="float64")[1])
+    f1 = np.asarray(run_bm5d(noisy, params(0.2), dtype="float64")[1])
     assert np.array_equal(f0, f1)
 
 
